@@ -1,4 +1,4 @@
-// vio_native: C++ measurement runtime for the TPU-native VIO framework.
+// vio_native: C++ measurement runtime for the VIO framework.
 //
 // Re-derivation of the reference's System runtime (reference:
 // vins-mono/src/System.cpp:50-72 PubImuData, :289-336 getMeasurements,

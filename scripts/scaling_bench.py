@@ -1,7 +1,7 @@
 """Strong-scaling curve of the sharded global BA — the 2-host
 scaling-efficiency number BASELINE.md's north star asks for (>= 80 % to 2
 hosts), measured honestly on this box: 1 OS process vs 2 OS processes
-under ``jax.distributed.initialize`` (Gloo collectives = the DCN analog),
+under ``jax.distributed.initialize`` (Gloo collectives over loopback),
 one single-threaded CPU device per process so the ONLY parallelism is the
 process level.  Both runs use the identical sharded solver code path
 (``global_ba.solve_sharded``: shard_map with landmark-aligned observation
@@ -144,7 +144,7 @@ def main():
         "with landmark-aligned observation shards, ONE psum of the reduced "
         f"(6·{args.N})² camera system per LM iteration) solved by 1 vs 2 OS "
         "processes under `jax.distributed.initialize` (Gloo collectives — "
-        "the DCN analog), one single-threaded CPU device per process.",
+        "over loopback), one single-threaded CPU device per process.",
         "",
         "| observations | 1-proc s (attempts) | 2-proc s (attempts) | "
         "s/attempt 1p | s/attempt 2p | efficiency |",
@@ -159,18 +159,19 @@ def main():
     lines += [
         "",
         f"final chi2 at the largest size: {rows[-1]['chi1']:.9g} (1p) vs "
-        f"{rows[-1]['chi2']:.9g} (2p) — SOLUTION PARITY (round-5 fix: "
-        "`global_ba._psum_hi` reduces the packed camera system in float64 "
-        "over the wire / Dekker-split on f64-less backends, so the psum "
-        "order no longer perturbs the LM accept path; r4 drifted 37.94 vs "
-        "46.19 here).  Small-problem parity is asserted bit-tight in "
+        f"{rows[-1]['chi2']:.9g} (2p) — SOLUTION PARITY "
+        "(`global_ba._psum_hi` reduces the packed camera system in float64 "
+        "over the wire, or Dekker-split when x64 is off, so the psum "
+        "order no longer perturbs the LM accept path; a plain float32 psum "
+        "drifted 37.94 vs 46.19 here).  Small-problem parity is asserted "
+        "bit-tight in "
         "tests/test_global_ba.py / test_distributed.py.",
         "",
         "Communication per LM iteration is ONE allreduce of the packed "
         f"reduced system: {per_iter_bytes/1e6:.2f} MB (f32 payload, 2x on "
-        "the f64/Dekker wire).  On ICI (~100 GB/s links) that is ~tens of "
-        "µs — the Gloo-over-loopback number here is the pessimistic "
-        "DCN-analog bound; efficiency rises with problem size as "
+        "the f64/Dekker wire).  The Gloo-over-loopback number here is a "
+        "CPU bound, not a GPU interconnect measurement; efficiency rises "
+        "with problem size as "
         "shard-local assembly amortizes the collective.  Timing noise on "
         "this 2-core box is significant (the 2p row at one size can beat "
         "the 1p per-process data point of the next); the curve's shape, "

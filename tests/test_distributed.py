@@ -1,13 +1,13 @@
 """Multi-process distributed solve: 2 OS processes x 2 virtual CPU devices
 under ``jax.distributed.initialize`` (Gloo collectives) — the framework's
 multi-host path (SURVEY.md §5.8: jax.distributed + mesh axes ("map",
-"factor"), DCN analog).  The reference is single-process (System.cpp
-pthreads only); this is the TPU-native capability BASELINE.md's
-2-host scaling row asks for, exercised without a pod.
+"factor")).  The reference is single-process (System.cpp pthreads only);
+this is the multi-host capability BASELINE.md's 2-host scaling row asks
+for, exercised on one machine.
 
 Each process owns the host-local shards of the observation arrays
 (``jax.make_array_from_callback``), the mesh spans both processes with
-"map" as the outer (cross-process / DCN) axis, and the solved trajectory
+"map" as the outer (cross-process) axis, and the solved trajectory
 must match the single-process solver exactly.
 """
 import os
@@ -50,7 +50,7 @@ noisy_np = jax.tree.map(np.asarray, global_ba.align_by_landmark(noisy, 4))
 ref, s1 = global_ba.solve(noisy, max_iter=6, fix_frames=2)
 ref_Ps = np.asarray(ref.Ps)
 
-# global mesh across both processes: map = cross-process (DCN analog)
+# global mesh across both processes: map = cross-process
 mesh = global_ba.make_mesh_2d(2, 2)
 rep = NamedSharding(mesh, P())
 obs = NamedSharding(mesh, P(("map", "factor")))

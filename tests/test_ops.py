@@ -1,5 +1,7 @@
-"""Pallas ops: the VMEM Gauss-Jordan SPD solve kernel (interpret mode on
-CPU) must agree with jnp.linalg.solve (the non-TPU fallback path)."""
+"""The damped pose solve (ops/linsolve.spd_solve): the direct route at the
+window sizes the estimator uses, in the production float32, against a
+numpy float64 solve of the same float32-rounded system; the Jacobi-PCG
+route above P=1024; and the float64 path the CPU tests run."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,20 +15,44 @@ def _spd(key, P, dtype):
     return M @ M.T + P * jnp.eye(P, dtype=dtype)
 
 
-@pytest.mark.parametrize("P", [17, 171, 300])
-def test_gj_kernel_matches_linalg_solve(P):
+# P = 6 + 15 (W + 1): 171 is the W=10 window, 321 the W=20 window
+@pytest.mark.parametrize("P", [17, 171, 321])
+def test_spd_solve_float32_matches_float64(P):
     key = jax.random.PRNGKey(3 + P)
     A = _spd(key, P, jnp.float32)
     b = jax.random.normal(key, (P,), jnp.float32)
-    x_ref = jnp.linalg.solve(A, b)
+    x = linsolve.spd_solve(A, b)
+    assert x.dtype == jnp.float32 and x.shape == (P,)
+    A64 = np.asarray(A, np.float64)
+    b64 = np.asarray(b, np.float64)
+    ref = np.linalg.solve(A64, b64)
+    x64 = np.asarray(x, np.float64)
+    # float32 LU on a matrix with condition number ~10: a few ulps
+    assert np.linalg.norm(A64 @ x64 - b64) / np.linalg.norm(b64) < 1e-5
+    np.testing.assert_allclose(x64, ref, rtol=1e-4, atol=1e-5)
 
-    N = max(linsolve._round_up(P, 128), 256)
-    A_pad = jnp.zeros((N, N), A.dtype).at[:P, :P].set(A)
-    b_pad = jnp.zeros((N, 128), A.dtype).at[:P, :].set(b[:, None])
-    out = linsolve._gj_solve_pallas(A_pad, b_pad, P, interpret=True)
-    x = out[:P, 0]
-    np.testing.assert_allclose(np.asarray(x), np.asarray(x_ref),
-                               rtol=2e-4, atol=2e-4)
+
+def test_spd_solve_large_routes_to_pcg(monkeypatch):
+    from vio_tpu.solver import pcg
+    calls = []
+    real = pcg.pcg_solve
+
+    def spy(A, b, *a, **k):
+        calls.append(A.shape)
+        return real(A, b, *a, **k)
+
+    monkeypatch.setattr(pcg, "pcg_solve", spy)
+    P = 1030
+    key = jax.random.PRNGKey(11)
+    A = _spd(key, P, jnp.float64)
+    b = jax.random.normal(key, (P,), jnp.float64)
+    x = linsolve.spd_solve(A, b)
+    linsolve.spd_solve(A[:1024, :1024], b[:1024])
+    assert calls == [(P, P)]
+    assert x.shape == (P,)
+    # PCG stops at ||r|| < 1e-6 ||b|| (pcg.pcg_solve rtol)
+    r = np.linalg.norm(np.asarray(A @ x - b)) / np.linalg.norm(np.asarray(b))
+    assert r < 1e-6, r
 
 
 def test_spd_solve_fallback_f64():

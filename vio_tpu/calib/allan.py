@@ -1,6 +1,6 @@
 """Allan-variance IMU noise calibration.
 
-TPU-native re-derivation of the reference's ROS calibration package
+Re-derivation in JAX of the reference's ROS calibration package
 (reference: 12-imu-calibration/src/calibration/src/allan_variance.cpp —
 log-spaced cluster sizes :117-149, 5-parameter log-log curve fit with
 Ceres DOGLEG :301-327, JSON/CSV output :63-116; published accuracy

@@ -1,10 +1,10 @@
 """Chessboard intrinsic calibration: Zhang's method + batched LM refinement.
 
-TPU-native re-derivation of the reference's camodocal calibration tooling
+Re-derivation in JAX of the reference's camodocal calibration tooling
 (reference: src/camera_models/ Chessboard.cc corner pipeline +
 CameraCalibration.cc / CostFunctionFactory.cc Ceres refinement — the one
 camodocal capability SURVEY §2.1 had scoped out; closed here).  The
-capability split is TPU-idiomatic:
+capability split follows the device/host boundary:
 
   * saddle-point SUB-PIXEL corner refinement runs on device against the
     actual image (the precision-critical image-processing step —

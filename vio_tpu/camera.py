@@ -1,7 +1,7 @@
 """Camera models: pinhole (radtan), equidistant (fisheye), MEI
 (catadioptric) and Scaramuzza (omnidirectional), batched jnp.
 
-TPU-native re-derivation of the camodocal model family (reference:
+Re-derivation in JAX of the camodocal model family (reference:
 src/camera_models/camera_models/{PinholeCamera.cc,EquidistantCamera.cc,
 CataCamera.cc,ScaramuzzaCamera.cc}, factory at CameraFactory.cc:90).
 Unprojection (``liftProjective``) uses fixed-iteration inverse distortion

@@ -6,7 +6,7 @@ simulator/src/main.cpp) with one CLI:
 
   run   — play a dataset through the estimator, dump TUM trajectory + APE
   sim   — generate the analytic dataset (optionally reference-format CSVs)
-  bench — single-chip window-BA throughput (same as bench.py)
+  bench — single-GPU benchmarks (same as bench.py)
 """
 from __future__ import annotations
 
@@ -65,7 +65,8 @@ def cmd_run(args):
             metrics.write_tum(args.out, traj["t"], traj["p"], traj["R"])
         print(json.dumps(dict(
             dataset="sim", noise=bool(args.noise), frames=len(traj["t"]),
-            failures=est.failure_count, wall_s=round(wall, 1),
+            initialized=bool(est.initialized), failures=est.failure_count,
+            wall_s=round(wall, 1),
             fps=round(est.frame_solved / max(wall, 1e-9), 2), ape=ape)))
     elif args.dataset == "euroc":
         cfg = euroc_config()
@@ -186,10 +187,12 @@ def main(argv=None):
     p.add_argument("--out", default=None, help="reference-format CSV dir")
     p.set_defaults(fn=cmd_sim)
 
-    p = sub.add_parser("bench", help="window-BA throughput benchmark")
+    p = sub.add_parser("bench", help="single-GPU benchmarks (bench.py)")
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
+    from . import compile_cache
+    compile_cache.enable()
     args.fn(args)
 
 

@@ -99,9 +99,6 @@ class VioConfig:
     f_threshold: float = 1.0
     equalize: bool = True
 
-    # --- numerics ---
-    solver_dtype: str = "float64"    # float64 on CPU tests, float32 on TPU
-
     @property
     def min_parallax(self) -> float:
         return self.min_parallax_px / self.focal_length

@@ -1,6 +1,6 @@
 """Per-feature track store across the sliding window.
 
-TPU-native re-derivation of the reference's FeatureManager
+Re-derivation in JAX of the reference's FeatureManager
 (reference: vins-mono/src/feature_manager.cpp:45-388 — keyframe decision
 by mean compensated parallax, multi-view SVD triangulation, depth pack /
 unpack, and track surgery on window slide).  This is deliberately a

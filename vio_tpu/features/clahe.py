@@ -4,7 +4,7 @@ Replaces cv::createCLAHE(3.0, cv::Size(8, 8)) (reference:
 vins-mono/src/feature_tracker.cpp:89-91 — applied to every frame when
 EQUALIZE, which the EuRoC config enables because the sequences are dark).
 
-TPU-first formulation: per-tile 256-bin histograms via one scatter-add,
+Device formulation: per-tile 256-bin histograms via one scatter-add,
 clip + uniform excess redistribution, per-tile LUT from the cumulative
 histogram, then one gather with bilinear interpolation between the four
 neighboring tile LUTs per pixel.  Fixed shapes, one fused XLA program —

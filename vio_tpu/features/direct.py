@@ -1,6 +1,6 @@
 """Sparse direct (photometric) pose estimation on an image pyramid.
 
-TPU-native re-derivation of the reference's direct method
+Re-derivation in JAX of the reference's direct method
 (reference: 06-frontend-direct-method/02-direct-method/direct_method.cpp:
 184-340 DirectPoseEstimationSingle/MultiLayer — photometric Gauss-Newton
 over 4 pyramid levels with scale 0.5, 4x4 patches around sparse points

@@ -36,15 +36,6 @@ PATCH = 21          # cv::calcOpticalFlowPyrLK default window
 HALF = PATCH // 2
 REFINE_HALF = 5     # 11×11 refinement window: small footprint so nearby
                     # features with different parallax cannot drag the fit
-CROP = 48           # per-feature crop side for the TPU iteration path:
-                    # 21-px patch + ±13 px refinement margin (per-level LK
-                    # motion after pyramid init is ≤ a few px)
-
-
-def _use_crops() -> bool:
-    """Crop-based MXU sampling on TPU; direct gathers on CPU (fast there,
-    and keeps the x64 test path simple)."""
-    return jax.default_backend() == "tpu"
 
 
 def _patch_grid(dtype, half: int = HALF):
@@ -59,12 +50,6 @@ def _gauss_weights(dtype, half: int):
     g = _patch_grid(dtype, half)
     s2 = (half / 1.5) ** 2
     return jnp.exp(-0.5 * jnp.sum(g * g, axis=-1) / s2)
-
-
-def _sample_patches(img, centers, half: int = HALF):
-    """(N, P²) bilinear patches around centers (N, 2).  Dispatches to
-    one-hot MXU matmuls on TPU, gathers on CPU (pyramid.patch_sample)."""
-    return pyramid.patch_sample(img, centers, half)
 
 
 def _zero_mean(P):
@@ -89,22 +74,8 @@ def _ic_iterate(img1, T, Gx, Gy, p1_init, n_iters: int, scale: float = 1.0,
     good_H = det > 1e-6
     inv_det = jnp.where(good_H, 1.0 / jnp.where(good_H, det, 1.0), 0.0)
 
-    if _use_crops():
-        # extract per-feature crops ONCE at the initial positions; every
-        # iteration samples inside the tiny crops (the LK basin is well
-        # within the crop margin)
-        C = _crop_size(half)
-        Hh, Ww = img1.shape
-        corners = pyramid.crop_corners(p1_init / scale, C, Hh, Ww)
-        crops = pyramid.extract_crops(img1, corners, C)[None]  # (1,N,C,C)
-        off = corners.astype(img1.dtype)
-
-        def sample(p1):
-            return pyramid.patch_from_crops_multi(
-                crops, p1 / scale - off, half)[0]
-    else:
-        def sample(p1):
-            return pyramid.patch_sample(img1, p1 / scale, half)
+    def sample(p1):
+        return pyramid.patch_sample(img1, p1 / scale, half)
 
     def body(_, p1):
         I = sample(p1)
@@ -132,27 +103,9 @@ def _track_level(img0, img1, p0, p1_init, n_iters: int, eps: float):
     return _ic_iterate(img1, T, Gx, Gy, p1_init, n_iters)
 
 
-def _crop_size(half: int) -> int:
-    """Crop side per window size: the 21-px track window gets ±13 px of
-    refinement margin, the 11-px refine window ±6 (refine gates shifts at
-    2 px anyway)."""
-    return CROP if half >= 8 else 24
-
-
 def _templates_at(img, p0, half):
     """Template patch + gradients at fixed positions p0: (T, Gx, Gy), each
-    (N, P²).  Crop path on TPU (gradients computed inside the crops — the
-    invalid outermost ring stays outside the patch except for features
-    pinned at the image border, which the in-bounds gates drop anyway)."""
-    if _use_crops():
-        C = _crop_size(half)
-        Hh, Ww = img.shape
-        corners = pyramid.crop_corners(p0, C, Hh, Ww)
-        crops = pyramid.extract_crops(img, corners, C)
-        gx, gy = pyramid.crop_gradients(crops)
-        local = p0 - corners.astype(img.dtype)
-        return pyramid.patch_from_crops_multi(
-            jnp.stack([crops, gx, gy]), local, half)
+    (N, P²)."""
     gx, gy = pyramid.central_gradients(img)
     return pyramid.patch_sample_multi(jnp.stack([img, gx, gy]), p0, half)
 

@@ -1,13 +1,13 @@
 """ORB features from scratch, batched on device: oriented-FAST angle by
 intensity centroid, 256-bit rotated BRIEF, Hamming brute-force matching.
 
-TPU-native re-derivation of the reference's hand-written ORB
+Re-derivation in JAX of the reference's hand-written ORB
 (reference: 05-frontend-feature-matching/01-orb-feature-matching/
 compute_orb.cpp:22-46 computeAngle via intensity centroid over a 16x16
 patch, :48-... rBRIEF from the 256-pair pattern, brute-force Hamming
 match with a distance gate).  Descriptors are bit-packed into 8 uint32
 lanes; Hamming distance is popcount over XOR, giving an (N1, N2) distance
-matrix as dense integer ops on the VPU.
+matrix as dense integer ops on the device.
 """
 from __future__ import annotations
 

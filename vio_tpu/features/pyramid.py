@@ -4,9 +4,8 @@ Replaces the OpenCV pyramid build inside cv::calcOpticalFlowPyrLK and the
 bilinear/Scharr ImageWithGradient of the reference
 (reference: 06-frontend-direct-method/01-optical-flow/optical_flow.cpp:10-84,
 vins-mono/src/feature_tracker.cpp:113).  Downsampling and gradient filters
-are `lax.conv` stencils — XLA fuses and tiles these well on the VPU/MXU; a
-hand-written Pallas kernel is reserved for the gather-heavy KLT iteration
-(klt.py), not these dense stencils.
+are static shifted adds that XLA fuses into a few elementwise kernels; the
+KLT iteration (klt.py) samples patches with gathers (``patch_sample``).
 """
 from __future__ import annotations
 
@@ -16,10 +15,9 @@ import jax.numpy as jnp
 
 def _corr1d(img, taps, axis: int):
     """1-D correlation along `axis` with zero-padded SAME semantics,
-    written as static shifted adds.  A single-channel spatial
-    ``lax.conv`` is the one stencil form XLA:TPU lowers terribly (no
-    channel dim to tile onto the MXU — a 5-tap blur on 640² measured
-    ~13 ms as a convolution_select fusion vs ~µs as fused VPU adds)."""
+    written as static shifted adds, which XLA fuses into one elementwise
+    kernel (a single-channel ``lax.conv`` has no channel dimension for a
+    convolution library to tile)."""
     r = len(taps) // 2
     pad = [(0, 0), (0, 0)]
     pad[axis] = (r, r)
@@ -93,8 +91,7 @@ def central_gradients(img):
 
 def bilinear_sample(img, xy):
     """Sample img (H, W) at float positions xy (..., 2) (x=col, y=row),
-    with edge clamping.  Pure gather — vmap/jit safe.  Fast on CPU; on
-    TPU prefer patch_sample (one-hot MXU matmuls) for patch grids."""
+    with edge clamping.  Pure gather — vmap/jit safe."""
     H, W = img.shape
     x = jnp.clip(xy[..., 0], 0.0, W - 1.001)
     y = jnp.clip(xy[..., 1], 0.0, H - 1.001)
@@ -110,74 +107,11 @@ def bilinear_sample(img, xy):
             fy * ((1 - fx) * i10 + fx * i11))
 
 
-# ---------------------------------------------------------------------------
-# MXU patch extraction
-#
-# Random gathers are the one memory pattern TPUs hate: bilinear_sample on a
-# (N, P², 2) point cloud issues ~66k scalar gathers per KLT iteration and
-# measured 4.7 fps at the reference work shape.  But a PATCH grid has
-# structure a gather doesn't exploit: every pixel of feature n's patch
-# shares the feature's fractional offset (the grid offsets are integers), so
-# bilinear extraction factorises exactly as
-#
-#     patch[n] = Ry[n] @ img @ Cx[n].T
-#
-# where Ry[n] (P, H) carries the two-tap y-blend ((1-fy) at row, fy at
-# row+1) and Cx[n] (P, W) the x-blend.  Stacked over features this is one
-# (N·P, H)x(H, W) matmul + one small batched matmul — pure MXU work, no
-# gathers.  Out-of-bounds taps clip onto the edge pixel (weights collapse),
-# matching bilinear_sample's clamp-to-edge up to the boundary fraction.
-# ---------------------------------------------------------------------------
-
-def _onehot_selectors(centers, half, H, W, dtype):
-    """Bilinear one-hot selectors: (Ry (N,P,H), Cx (N,P,W))."""
-    x = jnp.clip(centers[:, 0], 0.0, W - 1.001)
-    y = jnp.clip(centers[:, 1], 0.0, H - 1.001)
-    x0 = jnp.floor(x)
-    y0 = jnp.floor(y)
-    fx = (x - x0).astype(dtype)[:, None, None]
-    fy = (y - y0).astype(dtype)[:, None, None]
-    d = jnp.arange(-half, half + 1, dtype=jnp.int32)
-    rows = y0.astype(jnp.int32)[:, None] + d[None, :]          # (N, P)
-    cols = x0.astype(jnp.int32)[:, None] + d[None, :]
-    r0 = jnp.clip(rows, 0, H - 1)[..., None]
-    r1 = jnp.clip(rows + 1, 0, H - 1)[..., None]
-    c0 = jnp.clip(cols, 0, W - 1)[..., None]
-    c1 = jnp.clip(cols + 1, 0, W - 1)[..., None]
-    iy = jnp.arange(H, dtype=jnp.int32)
-    ix = jnp.arange(W, dtype=jnp.int32)
-    Ry = (iy == r0).astype(dtype) * (1 - fy) + (iy == r1).astype(dtype) * fy
-    Cx = (ix == c0).astype(dtype) * (1 - fx) + (ix == c1).astype(dtype) * fx
-    return Ry, Cx
-
-
-def _patch_matmul(imgs, Ry, Cx):
-    """imgs (C, H, W) → patches (C, N, P²) via the two MXU contractions.
-
-    precision=HIGHEST keeps fp32 accuracy on the MXU (default precision
-    truncates operands to bf16 — ±0.5 intensity error, enough to corrupt
-    sub-pixel registration)."""
-    t = jnp.einsum("nph,chw->cnpw", Ry, imgs,
-                   precision=jax.lax.Precision.HIGHEST)
-    p = jnp.einsum("cnpw,nqw->cnpq", t, Cx,
-                   precision=jax.lax.Precision.HIGHEST)
-    C, N, P, _ = p.shape
-    return p.reshape(C, N, P * P)
-
-
-def patch_sample_multi(imgs, centers, half, method=None):
+def patch_sample_multi(imgs, centers, half):
     """Bilinear patches of every channel of imgs (C, H, W) around centers
     (N, 2) on the integer offset grid [-half, half]².  Returns (C, N, P²)
-    with P = 2·half+1 in row-major (dy, dx) order.
-
-    method: "mxu" (one-hot matmuls — TPU), "gather" (bilinear_sample —
-    CPU), or None to pick by backend."""
-    if method is None:
-        method = "mxu" if jax.default_backend() == "tpu" else "gather"
-    C, H, W = imgs.shape
-    if method == "mxu":
-        Ry, Cx = _onehot_selectors(centers, half, H, W, imgs.dtype)
-        return _patch_matmul(imgs, Ry, Cx)
+    with P = 2·half+1 in row-major (dy, dx) order.  One gather per sample
+    point; a GPU serves a KLT frame's ~66k of them from L1/L2."""
     d = jnp.arange(-half, half + 1, dtype=imgs.dtype)
     dx, dy = jnp.meshgrid(d, d)
     grid = jnp.stack([dx, dy], axis=-1).reshape(-1, 2)
@@ -185,66 +119,6 @@ def patch_sample_multi(imgs, centers, half, method=None):
     return jax.vmap(lambda im: bilinear_sample(im, pts))(imgs)
 
 
-def patch_sample(img, centers, half, method=None):
+def patch_sample(img, centers, half):
     """Single-image variant of patch_sample_multi: (N, P²)."""
-    return patch_sample_multi(img[None], centers, half, method)[0]
-
-
-# ---------------------------------------------------------------------------
-# Crop-based sampling: the KLT iteration refines each feature by well under
-# the patch radius, so instead of contracting against the full image every
-# iteration (N·P×H @ H×W), extract ONE integer-aligned crop per feature per
-# level and run every iteration against the tiny crops — ~250× fewer FLOPs
-# per iteration at the reference work shape.
-# ---------------------------------------------------------------------------
-
-def extract_crops(img, corners, crop: int):
-    """Integer-aligned (crop × crop) windows of img (H, W) at corners
-    (N, 2) int32 (x0, y0), clipped to the image.  Pure 0/1 one-hot
-    selection — each output element IS an input pixel (exact, no blend).
-    Returns (N, crop, crop) [row, col]."""
-    H, W = img.shape
-    d = jnp.arange(crop, dtype=jnp.int32)
-    rows = jnp.clip(corners[:, 1, None] + d[None, :], 0, H - 1)   # (N, C)
-    cols = jnp.clip(corners[:, 0, None] + d[None, :], 0, W - 1)
-    iy = jnp.arange(H, dtype=jnp.int32)
-    ix = jnp.arange(W, dtype=jnp.int32)
-    Rr = (iy == rows[..., None]).astype(img.dtype)                # (N, C, H)
-    Cc = (ix == cols[..., None]).astype(img.dtype)                # (N, C, W)
-    t = jnp.einsum("nch,hw->ncw", Rr, img,
-                   precision=jax.lax.Precision.HIGHEST)
-    return jnp.einsum("ncw,ndw->ncd", t, Cc,
-                      precision=jax.lax.Precision.HIGHEST)
-
-
-def crop_corners(centers, crop: int, H: int, W: int):
-    """Integer top-left corners (N, 2) that center (crop × crop) windows on
-    the float centers, clipped so every window lies inside the image."""
-    c = jnp.floor(centers - (crop - 1) / 2.0 + 0.5).astype(jnp.int32)
-    cx = jnp.clip(c[:, 0], 0, W - crop)
-    cy = jnp.clip(c[:, 1], 0, H - crop)
-    return jnp.stack([cx, cy], axis=-1)
-
-
-def patch_from_crops_multi(crops, local, half):
-    """Bilinear patches from per-feature crops (C_ch, N, C, C) at LOCAL
-    float positions local (N, 2) (crop coords).  Returns (C_ch, N, P²).
-    Same one-hot construction as patch_sample_multi, against the tiny
-    per-feature crop instead of the image."""
-    n_ch, N, C, _ = crops.shape
-    Ry, Cx = _onehot_selectors(local, half, C, C, crops.dtype)    # (N,P,C)
-    t = jnp.einsum("npc,kncd->knpd", Ry, crops,
-                   precision=jax.lax.Precision.HIGHEST)
-    p = jnp.einsum("knpd,nqd->knpq", t, Cx,
-                   precision=jax.lax.Precision.HIGHEST)
-    P = 2 * half + 1
-    return p.reshape(n_ch, N, P * P)
-
-
-def crop_gradients(crops):
-    """Central-difference gradients inside each crop (N, C, C); the
-    outermost ring is invalid (no halo) — callers keep patches ≥1 px
-    interior, which the crop margin guarantees."""
-    gx = 0.5 * (jnp.roll(crops, -1, axis=2) - jnp.roll(crops, 1, axis=2))
-    gy = 0.5 * (jnp.roll(crops, -1, axis=1) - jnp.roll(crops, 1, axis=1))
-    return gx, gy
+    return patch_sample_multi(img[None], centers, half)[0]

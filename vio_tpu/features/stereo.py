@@ -32,7 +32,7 @@ def disparity_from_flow(left, right, pts, valid, max_disp: int = 64,
     coarse-to-fine pyramid (which washes out fine texture and loses large
     disparities), the rectified-stereo structure is exploited directly:
     an exhaustive 1-px SAD scan along the scanline over ``max_disp``
-    candidates — one batched gather of shape (N, D, patch), pure VPU work —
+    candidates — one batched gather of shape (N, D, patch), elementwise work —
     picks the integer disparity, then full-resolution inverse-compositional
     LK refines to subpixel with the row re-pinned (the epipolar
     constraint).  Matches the reference's LK-based disparity experiment
@@ -42,11 +42,12 @@ def disparity_from_flow(left, right, pts, valid, max_disp: int = 64,
     """
     N = pts.shape[0]
     dtype = left.dtype
-    T = klt._sample_patches(left, pts)                    # (N, P²)
+    T = pyramid.patch_sample(left, pts, klt.HALF)         # (N, P²)
     ds = jnp.arange(max_disp, dtype=dtype)                # (D,)
     cand = pts[:, None, :] - jnp.stack(
         [ds, jnp.zeros_like(ds)], axis=-1)[None, :, :]    # (N, D, 2)
-    patches = jax.vmap(lambda c: klt._sample_patches(right, c))(cand)
+    patches = jax.vmap(
+        lambda c: pyramid.patch_sample(right, c, klt.HALF))(cand)
     sad = jnp.mean(jnp.abs(patches - T[:, None, :]), axis=-1)   # (N, D)
     # penalize candidates whose window leaves the image
     off_img = cand[..., 0] < 1.0

@@ -1,6 +1,6 @@
 """Visual frontend: the KLT feature tracker over camera streams.
 
-TPU-native re-derivation of the reference FeatureTracker
+Re-derivation in JAX of the reference FeatureTracker
 (reference: vins-mono/src/feature_tracker.cpp:81-305 readImage — KLT
 tracking, RANSAC-F outlier rejection, min-distance replenishment,
 undistortion + per-feature normalized-plane velocity).

@@ -1,6 +1,6 @@
 """IMU preintegration: midpoint integrator with bias Jacobian & covariance.
 
-TPU-native re-derivation of the reference's IntegrationBase
+Re-derivation in JAX of the reference's IntegrationBase
 (reference: vins-mono/include/factor/integration_base.h:54-128
 midPointIntegration, :130-158 propagate, :160-186 evaluate).  The whole
 buffer is integrated in one masked ``lax.scan``; repropagation after a bias

@@ -1,6 +1,6 @@
 """Visual-IMU alignment: gyro bias, velocities, gravity, and metric scale.
 
-TPU-native re-derivation of the reference alignment
+Re-derivation in JAX of the reference alignment
 (reference: vins-mono/src/initial/initial_aligment.cpp:3-207 —
 solveGyroscopeBias, TangentBasis, RefineGravity, LinearAlignment,
 VisualIMUAlignment).  The per-frame-pair blocks are built batched in jnp;
@@ -82,9 +82,9 @@ def _pair_blocks(R, T, delta_p, delta_v, dts, tic):
     137-160).  Plain numpy FLOAT64 regardless of the device dtype regime:
     this runs once per init attempt on the host, and the (g, s, v) system
     is ill-conditioned enough that float32 block formation distorts the
-    solved scale and poisons the residual-based acceptance gate (the
-    on-chip fp32 600-frame divergence, round 4).  Returns (A6 (N,6,10),
-    b6 (N,6))."""
+    solved scale and poisons the residual-based acceptance gate (a float32
+    600-frame run diverged before this ran on the host).  Returns
+    (A6 (N,6,10), b6 (N,6))."""
     R = np.asarray(R, np.float64)
     T = np.asarray(T, np.float64)
     delta_p = np.asarray(delta_p, np.float64)

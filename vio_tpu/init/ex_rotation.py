@@ -1,6 +1,6 @@
 """Online camera-IMU extrinsic rotation calibration (hand-eye).
 
-TPU-native re-derivation of the reference's InitialEXRotation
+Re-derivation in JAX of the reference's InitialEXRotation
 (reference: vins-mono/src/initial/initial_ex_rotation.cpp:11-110
 CalibrationExRotation): stack the quaternion Sylvester constraint
 L(q_cam) − R(q_imu) over frame pairs, Huber-weight by the angular

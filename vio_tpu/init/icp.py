@@ -1,6 +1,6 @@
 """Point-cloud alignment: SVD-Umeyama ICP and GN-on-SE3 refinement.
 
-TPU-native re-derivation of the reference's ICP assignment
+Re-derivation in JAX of the reference's ICP assignment
 (reference: 05-frontend-feature-matching/04-icp/SVD.cpp:183 Umeyama
 closed form, G-N.cpp:222 Gauss-Newton on SE3, incl. trajectory
 alignment).  Known correspondences (the assignment aligns two

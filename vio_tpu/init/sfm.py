@@ -1,7 +1,7 @@
 """Structure-from-motion bootstrap: DLT triangulation, GN PnP, RANSAC
 relative pose, and incremental global SfM over the init window.
 
-TPU-native re-derivation of the reference initialization pipeline
+Re-derivation in JAX of the reference initialization pipeline
 (reference: vins-mono/src/initial/initial_sfm.cpp:5-313 GlobalSFM,
 initial/solve_5pts.cpp:5-230 MotionEstimator, and the GN-PnP of
 05-frontend-feature-matching/03-pnp/GN-BA.cpp:64-157).  The geometry
@@ -151,7 +151,11 @@ def _eight_point(x0, x1, w):
         x1[:, 1] * x0[:, 0], x1[:, 1] * x0[:, 1], x1[:, 1],
         x0[:, 0], x0[:, 1], jnp.ones_like(x0[:, 0]),
     ], axis=-1) * w[:, None]                                    # (N, 9)
-    _, _, Vt = jnp.linalg.svd(a, full_matrices=False)
+    # A and its (9, 9) R factor share their right singular vectors; the
+    # SVD of a batch of tall (N, 9) blocks runs one solver call per block
+    # on a GPU, the SVD of the small R factors one batched call
+    r = jnp.linalg.qr(a, mode="r")
+    _, _, Vt = jnp.linalg.svd(r, full_matrices=False)
     E = Vt[-1].reshape(3, 3)
     # project onto the essential manifold (rank 2, equal singular values)
     U, s, Vt2 = jnp.linalg.svd(E)
@@ -177,6 +181,10 @@ def essential_ransac(x0, x1, valid, key, thresh=0.3 / 460.0, n_hyp: int = 256):
     valid (N,) which rows are real.  thresh follows the reference's
     cv::findFundamentalMat(..., 0.3 / 460, 0.99) (solve_5pts.cpp:199)."""
     N = x0.shape[0]
+    # rows that are not real may hold NaN (lost tracks); NaN * 0 weight is
+    # still NaN, and a NaN block can stall a GPU SVD indefinitely
+    x0 = jnp.where(valid[:, None], x0, 0.0)
+    x1 = jnp.where(valid[:, None], x1, 0.0)
     p = valid.astype(jnp.float32) + 1e-9
     idx = jax.vmap(lambda k: jax.random.choice(k, N, (8,), replace=False,
                                                p=p / jnp.sum(p)))(
@@ -384,7 +392,7 @@ def _sfm_ba(obs, use, l, Rs, ts, X, tri):
     x0 = jnp.concatenate([jnp.zeros(6 * K), jnp.asarray(X[fidx]).reshape(-1)])
     ts0 = jnp.asarray(ts)
 
-    fdt = jnp.result_type(float)  # f64 on x64 CPU tests, f32 on TPU
+    fdt = jnp.result_type(float)  # f64 on x64 CPU tests, f32 on the GPU
     free_rot = jnp.asarray([(k != l) for k in range(K)], fdt)
     free_t = jnp.asarray([(k != l and k != last) for k in range(K)], fdt)
 

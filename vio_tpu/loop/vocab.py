@@ -1,6 +1,6 @@
 """Binary bag-of-words place recognition over ORB descriptors.
 
-TPU-native re-derivation of the reference's DBoW3 demo
+Re-derivation in JAX of the reference's DBoW3 demo
 (reference: 08-loop-closure/01-dbow-demo/dbow_demo.cpp:31-60 — vocabulary
 build with K=10 branching / L=5 depth over ORB descriptors, database
 query; README.md:44-50 knowhow: raw scores need relative normalization
@@ -9,7 +9,7 @@ against the previous-frame score).
 The vocabulary is a flat K^L-leaf codebook trained by binary k-medians
 (majority-bit centers) — hierarchical traversal is replaced by ONE
 Hamming-distance matmul-style pass against all words (dense (N, W) int
-ops vectorize better on TPU than tree descent).  BoW vectors are TF-IDF
+ops vectorize better on an accelerator than tree descent).  BoW vectors are TF-IDF
 weighted, scored with the DBoW L1 similarity.
 """
 from __future__ import annotations

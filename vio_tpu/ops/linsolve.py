@@ -1,104 +1,41 @@
-"""Pallas TPU kernel: small dense SPD solve, fully resident in VMEM.
+"""Small dense SPD solve for the damped reduced camera system.
 
 The reference solves its damped reduced camera system with Eigen's LDLT
 (reference: vins-mono/src/backend/problem.cc:439 ``H.ldlt().solve(b)``).
-On TPU, XLA lowers ``jnp.linalg.solve`` of a ~171x171 system to a blocked
-LU with many tiny sequential kernels (~0.7 ms measured on one chip) —
-pure dispatch/latency, zero MXU utilization.  This kernel instead runs a
-single Gauss-Jordan elimination pass with the whole augmented system held
-in VMEM: one kernel launch, ``P`` vectorized VPU row-elimination steps,
-no HBM round trips.
-
-Gauss-Jordan without pivoting is numerically safe here because every
-system we solve is SPD by construction (J^T W J + lambda*I with lambda
->= 1e-5 * max|diag|, problem.cc:434-436), for which elimination without
-pivoting is backward stable.
-
-On non-TPU backends (CPU tests run in float64) we fall back to
-``jnp.linalg.solve`` — the kernel and the fallback agree to float32
-round-off (tests/test_ops.py).
+Every system solved here is SPD by construction (J^T W J + lambda*I with
+lambda >= 1e-5 * max|diag|, problem.cc:434-436), so the direct route is a
+Cholesky factorization.  Its accuracy does not depend on how the rows are
+scaled, and this system is badly scaled: the IMU bias blocks carry ~1e8
+times the information of the pose blocks.  An LU with partial pivoting
+(``jnp.linalg.solve``) picks pivots by magnitude instead, and in float32
+it stalls the LM at a chi2 floor some 400 times the optimum.
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-
-
-def _round_up(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
-
-
-@functools.partial(jax.jit, static_argnames=("n", "interpret"))
-def _gj_solve_pallas(A_pad: jnp.ndarray, b_pad: jnp.ndarray, n: int,
-                     interpret: bool = False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    N = A_pad.shape[0]
-
-    def kernel(a_ref, b_ref, out_ref, awork, bwork):
-        awork[:] = a_ref[:]
-        bwork[:] = b_ref[:]
-        lane = jax.lax.broadcasted_iota(jnp.int32, (1, N), 1)
-        row = jax.lax.broadcasted_iota(jnp.int32, (N, 1), 0)
-
-        def body(k, _):
-            rowk = awork[pl.ds(k, 1), :]                       # (1, N)
-            bk = bwork[pl.ds(k, 1), :]                         # (1, 128)
-            sel = (lane == k).astype(rowk.dtype)
-            piv = jnp.sum(rowk * sel)
-            inv = 1.0 / piv
-            rowk_n = rowk * inv
-            bk_n = bk * inv
-            # column k of the working matrix, rows != k
-            c = jnp.sum(awork[:] * sel, axis=1, keepdims=True)  # (N, 1)
-            cm = jnp.where(row == k, 0.0, c)
-            awork[:] = awork[:] - cm * rowk_n
-            bwork[:] = bwork[:] - cm * bk_n
-            awork[pl.ds(k, 1), :] = rowk_n
-            bwork[pl.ds(k, 1), :] = bk_n
-            return 0
-
-        jax.lax.fori_loop(0, n, body, 0)
-        out_ref[:] = bwork[:]
-
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((N, 128), A_pad.dtype),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((N, N), A_pad.dtype),
-                        pltpu.VMEM((N, 128), A_pad.dtype)],
-        interpret=interpret,
-    )(A_pad, b_pad)
-    return out
+import jax.scipy.linalg
 
 
 def spd_solve(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Solve the SPD system ``A x = b`` (A: (P, P), b: (P,)).
 
-    Uses the VMEM Gauss-Jordan kernel on TPU float32 up to P=1024.  Beyond
-    that (the 200-1000-keyframe global-BA configs, BASELINE.json north
-    star) a direct factorization is the wrong tool on TPU — XLA's blocked
-    LU is a long chain of tiny sequential kernels — so large systems route
-    through Jacobi-PCG (solver/pcg.py), whose matvec is one MXU GEMM per
+    Systems up to P=1024 use a Cholesky solve.  Beyond that (the
+    200-1000-keyframe global-BA configs, BASELINE.json north star) they
+    route through Jacobi-PCG (solver/pcg.py), whose matvec is one GEMM per
     iteration and stays sharded under GSPMD (reference's own scalable
-    path: problem.cc:580-610 PCGSolver).  CPU float64 keeps
-    ``jnp.linalg.solve``.
+    path: problem.cc:580-610 PCGSolver).
+
+    A system whose gauge directions carry only a small damping can be
+    indefinite after float32 rounding; its factorization breaks down and
+    the result is NaN.  The LM loops treat a non-finite step as a rejected
+    one and raise the damping, as Ceres does when its linear solver fails.
+    An LU answer to such a system is finite but poor, and accepting it
+    stalls the LM at the chi2 floor described above.
     """
     P = A.shape[0]
     if P > 1024:
         from ..solver.pcg import pcg_solve
         x, _ = pcg_solve(A, b)
         return x
-    use_pallas = (jax.default_backend() == "tpu" and A.dtype == jnp.float32)
-    if not use_pallas:
-        return jnp.linalg.solve(A, b)
-    N = max(_round_up(P, 128), 256)
-    A_pad = jnp.zeros((N, N), A.dtype).at[:P, :P].set(A)
-    b_pad = jnp.zeros((N, 128), A.dtype).at[:P, :].set(b[:, None])
-    out = _gj_solve_pallas(A_pad, b_pad, P)
-    return out[:P, 0]
+    return jax.scipy.linalg.cho_solve(jax.scipy.linalg.cho_factor(A), b)

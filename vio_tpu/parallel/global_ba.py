@@ -18,12 +18,12 @@ Structure (all static shapes):
   solver/window.py) entirely: per-observation 6-dof pose Jacobian blocks
   are scatter-added with ``segment_sum`` into block-pair (N, N, 6, 6),
   pose-landmark (N*M sparse -> dense (6N, M)) and diagonal landmark terms.
-- Reduced camera system S = Hpp - Hpm diag(Hmm)^-1 Hpm^T is ONE MXU GEMM;
-  the damped solve runs on the Pallas VMEM kernel (ops/linsolve.py) for
-  P = 6N up to ~1024.
+- Reduced camera system S = Hpp - Hpm diag(Hmm)^-1 Hpm^T is ONE GEMM;
+  the damped solve is ops/linsolve.spd_solve (a direct solve up to
+  P = 6N = 1024, Jacobi-PCG above).
 - Sharding: shard the observation axis (and the landmark tables) across
   the mesh with NamedSharding; GSPMD turns the segment-sums and the
-  S GEMM's contractions into psum over ICI.  No hand-written collectives.
+  S GEMM's contractions into a psum.  No hand-written collectives.
 
 Reference lineage for the math: reprojection factor edge_reprojection.cc,
 Schur solve problem.cc:409-446 — re-derived at scale.
@@ -172,7 +172,7 @@ def schur_step(n: GlobalNormal, lam, lm_valid, use_pcg: bool = False):
     """Landmark Schur + damped pose solve + back-substitution.
 
     ``use_pcg=True`` solves the reduced system with Jacobi-PCG instead of
-    the direct VMEM kernel — the scalable path: under a map-axis sharding
+    the direct solve — the scalable path: under a map-axis sharding
     the CG matvec is a row-block GEMV whose partial products GSPMD reduces
     with one psum (the reference's own answer at scale, PCGSolver
     problem.cc:580-610)."""
@@ -180,7 +180,7 @@ def schur_step(n: GlobalNormal, lam, lm_valid, use_pcg: bool = False):
     Hmm_inv = jnp.where(n.Hmm > 1e-12, 1.0 / jnp.maximum(n.Hmm, 1e-12), 0.0)
     Hmm_inv = jnp.where(lm_valid, Hmm_inv, 0.0)
     tempH = n.Hpm * Hmm_inv[None, :]
-    S = n.Hpp - tempH @ n.Hpm.T                      # <- MXU GEMM (6N,M,6N)
+    S = n.Hpp - tempH @ n.Hpm.T                      # <- GEMM (6N,M,6N)
     rhs = n.bp - tempH @ n.bm
     S = S + lam * jnp.eye(P6, dtype=S.dtype)
     if use_pcg:
@@ -277,9 +277,10 @@ def shard_problem(p: GlobalBA, mesh: Mesh, axis: str = "factor") -> GlobalBA:
 def make_mesh_2d(n_map: int, n_factor: int, devices=None) -> Mesh:
     """2-D device mesh: keyframe blocks over "map" (the reduced camera
     system's row partition), observations over "factor" (SURVEY.md §2.5
-    map-block sharding).  On a pod slice, lay "factor" on the inner (ICI-
-    nearest) axis so the assembly psum rides ICI; "map" is the outer axis
-    (DCN across hosts under jax.distributed)."""
+    map-block sharding).  The cards of one host are joined all to all
+    (NVLink), so the split follows the algorithm: "map" is the row
+    partition of the reduced system, "factor" the observation shards.
+    Across hosts under jax.distributed, keep "map" on the host axis."""
     devs = devices if devices is not None else jax.devices()
     assert len(devs) >= n_map * n_factor, (len(devs), n_map, n_factor)
     arr = np.asarray(devs[: n_map * n_factor]).reshape(n_map, n_factor)
@@ -365,16 +366,17 @@ def _obs_shardings(p: GlobalBA, mesh: Mesh):
 
 
 def _psum_hi(x, ax):
-    """High-precision psum of f32 partials (round-5 fix for the r4
-    2-process solution drift: at 262k obs the f32 psum ordering changed
-    the LM accept path enough to change the final chi² — SCALING.md).
-    With x64 available (CPU/Gloo scaling runs) the payload rides the wire
-    in float64 — the reduction order then no longer perturbs the LM
-    accept decisions.  On f64-less backends (TPU pods) the payload is
-    Dekker-split into high/low mantissa halves reduced separately — each
-    half carries ~12 significant bits, so the recombined sum keeps ~twice
-    the effective mantissa of a plain f32 psum at the cost of doubling
-    one small (0.59 MB) collective."""
+    """High-precision psum of f32 partials (the fix for a 2-process
+    solution drift: at 262k obs the f32 psum ordering changed the LM
+    accept path enough to change the final chi² — SCALING.md).  With x64
+    enabled (CPU/Gloo scaling runs) the payload rides the wire in float64
+    — the reduction order then no longer perturbs the LM accept
+    decisions.  In the production regime x64 is off, so no float64 array
+    exists in the program: the payload is Dekker-split into high/low
+    mantissa halves reduced separately — each half carries ~12
+    significant bits, so the recombined sum keeps ~twice the effective
+    mantissa of a plain f32 psum at the cost of doubling one small
+    (0.59 MB) collective."""
     if x.dtype == jnp.float64:
         return jax.lax.psum(x, ax)
     if jax.config.jax_enable_x64:
@@ -397,15 +399,13 @@ def solve_sharded(p: GlobalBA, mesh: Mesh, max_iter: int = 20,
     compute on every device (no communication); landmark back-substitution
     and state update stay local.
 
-    This replaces the round-3 GSPMD-constraint design that materialized
+    This replaces an earlier GSPMD-constraint design that materialized
     and re-sharded the dense (6N, M) pose-landmark coupling every
-    iteration (VERDICT.md r3 weak #3: 18% two-process efficiency —
-    collective traffic swamped compute).  Reference hot-spot lineage:
+    iteration (18% two-process efficiency — collective traffic swamped
+    compute).  Reference hot-spot lineage:
     problem.cc:311-313,420,696 (MakeHessian accumulation + Schur).
 
     Identical math to ``solve`` — tests assert trajectory agreement."""
-    from jax.experimental.shard_map import shard_map
-
     axes = tuple(mesh.axis_names)
     ax = axes if len(axes) > 1 else axes[0]
     D = int(mesh.devices.size)
@@ -606,6 +606,6 @@ def solve_sharded(p: GlobalBA, mesh: Mesh, max_iter: int = 20,
         p_out, chi, lam, it = out[0], out[3], out[6], out[8]
         return p_out, dict(chi2=chi, chi2_init=chi0, iterations=it, lam=lam)
 
-    fn = jax.jit(shard_map(body_fn, mesh=mesh, in_specs=(in_specs,),
-                           out_specs=out_specs, check_rep=False))
+    fn = jax.jit(jax.shard_map(body_fn, mesh=mesh, in_specs=(in_specs,),
+                               out_specs=out_specs, check_vma=False))
     return fn(p)

@@ -2,20 +2,21 @@
 
 The reference's own hot-spot notes ("TODO:: use openMP" at Hessian assembly
 and landmark-block inversion, reference: vins-mono/src/backend/problem.cc:
-311-313,420,696) become, TPU-natively, SPMD over a device mesh
+311-313,420,696) become SPMD over a device mesh
 (SURVEY.md §2.5): the reprojection-factor axis ``F`` is sharded across the
 ``factor`` mesh axis, so per-factor Jacobians, robust weights, landmark
 (inverse-depth) blocks, and the landmark Schur elimination are all local to
 a shard; the reduced camera system ``JᵀWJ`` contributions meet in ONE
 XLA-inserted ``psum`` (from the sharded contracting dimension of the
-``Jmat.T @ WJmat`` / ``tempH @ Hpm.T`` GEMMs), which rides ICI.  The damped
+``Jmat.T @ WJmat`` / ``tempH @ Hpm.T`` GEMMs), which XLA hands to NCCL on
+GPUs.  The damped
 pose solve is replicated (it is (P,P), tiny), and back-substitution is
 local again.
 
 No hand-written collectives: shardings are declared on the inputs via
-``NamedSharding`` and GSPMD partitions the jitted solver.  A 2-D mesh
-("map", "factor") is accepted for forward-compatibility with keyframe-block
-("map") sharding of large-window global BA; this stage uses "factor".
+``NamedSharding`` and GSPMD partitions the jitted solver.  The mesh is one
+"factor" axis over all cards: the cards of one host are joined all to all
+(NVLink), so no axis order is closer than another.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Analytic VIO simulator: closed-form trajectory + exact IMU + landmarks.
 
-TPU-native re-derivation of the reference simulator
+Re-derivation in JAX of the reference simulator
 (reference: 17-vins-initialization/simulator/src/imu.cpp:76-117 MotionModel,
 imu.cpp:50-74 addIMUnoise, simulator/src/main.cpp CreatePointsLines).
 Same constants, so accuracy numbers are directly comparable with the

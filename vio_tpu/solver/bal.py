@@ -3,7 +3,7 @@
 Capability parity with the reference's BAL-g2o assignment
 (reference: 07-backend-optimization/01-bal-g2o/src/bal_g2o.cpp:67-216 —
 9-param BAL cameras [angle-axis R, t, f, k1, k2], XYZ landmarks, analytic
-Jacobians, Schur over points), re-designed for TPU:
+Jacobians, Schur over points), re-designed as batched device code:
 
 - States are SoA pytrees: camera quaternions/translations/intrinsics
   stacked ``(C, ·)``, points ``(M, 3)``.
@@ -11,12 +11,12 @@ Jacobians, Schur over points), re-designed for TPU:
   indices and a validity mask; residual+Jacobian for every observation is
   one ``vmap`` (fwd-mode Jacobian of the 2-vector residual — 12 columns).
 - The normal equations are built with ``segment_sum`` scatter-adds into
-  block form: dense camera Hessian ``(9C, 9C)`` via one MXU GEMM over the
+  block form: dense camera Hessian ``(9C, 9C)`` via one GEMM over the
   row-stacked observation Jacobians, per-point 3x3 blocks, and the
   camera-point coupling as a dense ``(C, M, 9, 3)`` block tensor (BAL
-  problems have C << M; the tensor rides the MXU in the Schur GEMMs).
+  problems have C << M; the tensor feeds the Schur GEMMs).
 - Schur: batched 3x3 point-block inverse -> reduced camera system ->
-  damped solve (Pallas VMEM Gauss-Jordan on TPU) -> back-substitution,
+  damped solve (ops/linsolve.spd_solve) -> back-substitution,
   all inside one jitted Nielsen-LM ``lax.while_loop``.
 
 BAL convention: P = R X + t, p = -P_xy / P_z, r(p) = 1 + k1|p|^2 + k2|p|^4,

@@ -1,15 +1,15 @@
-"""Generic camera-point block bundle-adjustment engine (TPU-native).
+"""Generic camera-point block bundle-adjustment engine.
 
 The shared machinery behind BAL BA (solver/bal.py) and photometric direct
 BA (features/direct.py): per-observation residual/Jacobian batches are
 scatter-added with ``segment_sum`` into block normal equations — dense
 camera Hessian (DC*C, DC*C), batched 3x3 point blocks, and a dense
 (C, M, DC, 3) coupling tensor — then the point blocks are Schur-eliminated
-and the damped reduced camera system solved (Pallas VMEM Gauss-Jordan on
-TPU).  A host-side Nielsen-LM drives it (these BAs run once, not per
+and the damped reduced camera system solved (ops/linsolve.spd_solve).
+A host-side Nielsen-LM drives it (these BAs run once, not per
 frame; per-step work is jitted device code).
 
-This is the TPU answer to the reference's per-edge g2o/hand-written
+This is the batched answer to the reference's per-edge g2o/hand-written
 Hessian accumulation (reference: 07-backend-optimization/01-bal-g2o/src/
 bal_g2o.cpp and 02-direct-ba/direct_ba.cpp; block solve structure as in
 vins-mono/src/backend/problem.cc:394-451).

@@ -3,9 +3,8 @@ re-fix → outlier errors → marginalization Hessian, in ONE jitted call.
 
 The estimator's per-frame host loop previously issued 4+ separate device
 programs (preintegrate_batch, solve_window, feature_reproj_errors, the
-marg assemble) plus dozens of small host↔device transfers — through an
-RPC-attached TPU each dispatch costs a round trip, and even locally each
-costs dispatch latency.  This module traces the whole frame as one XLA
+marg assemble) plus dozens of small host↔device transfers, each costing
+dispatch latency.  This module traces the whole frame as one XLA
 program (reference per-frame flow: vins-mono/src/estimator.cpp:492-503
 solveOdometry → :549-600 double2vector gauge re-fix → :1075-1143
 backendOptimization/marginalization), so per-frame device work is a

@@ -40,7 +40,7 @@ def schur_solve(normal: W.Normal, lam, feat_valid):
     Hmm_inv = jnp.where(jnp.abs(normal.Hmm) > 1e-30, 1.0 / normal.Hmm, 0.0)
     Hmm_inv = jnp.where(feat_valid, Hmm_inv, 0.0)
     tempH = normal.Hpm * Hmm_inv[None, :]                    # Hpm · Hmm⁻¹
-    Hpp_schur = normal.Hpp - tempH @ normal.Hpm.T            # ← MXU GEMM
+    Hpp_schur = normal.Hpp - tempH @ normal.Hpm.T            # ← GEMM
     bp_schur = normal.bp - tempH @ normal.bm
     P = Hpp_schur.shape[0]
     Hpp_schur = Hpp_schur + lam * jnp.eye(P, dtype=Hpp_schur.dtype)

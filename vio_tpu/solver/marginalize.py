@@ -120,7 +120,7 @@ def marginalize_new(f: W.WindowFactors):
 
 
 # ---------------------------------------------------------------------------
-# Host-f64 twin of the prior chain (round-5 on-chip accuracy fix)
+# Host-f64 twin of the prior chain
 # ---------------------------------------------------------------------------
 # The marginalization prior is the window's only long-memory state: its
 # eigh pseudo-inverse + sqrt-form is re-folded every frame, so f32

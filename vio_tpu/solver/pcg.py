@@ -2,8 +2,8 @@
 
 Re-derivation of the reference's PCGSolver
 (reference: vins-mono/src/backend/problem.cc:580-610 — Jacobi
-preconditioner, stop at ‖r‖ < 1e-6·‖r0‖ or n iterations).  On TPU this is
-the *scalable* pose solve: the matvec is one GEMM, so for the
+preconditioner, stop at ‖r‖ < 1e-6·‖r0‖ or n iterations).  This is the
+*scalable* pose solve: the matvec is one GEMM, so for the
 large-window / multi-host configs (BASELINE.json: 200-1000 keyframes) the
 reduced system can stay block-partitioned over the mesh, with the matvec
 psum-reduced — CG never materializes a factorization.

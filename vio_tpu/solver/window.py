@@ -1,6 +1,6 @@
-"""Sliding-window BA problem in structure-of-arrays form + MXU assembly.
+"""Sliding-window BA problem in structure-of-arrays form + GEMM assembly.
 
-TPU-native replacement for the reference's per-edge Hessian accumulation
+Batched replacement for the reference's per-edge Hessian accumulation
 (reference: vins-mono/src/backend/problem.cc:303-389 MakeHessian — the
 author's own "TODO:: accelate, accelate, accelate" hot loop).
 
@@ -8,7 +8,7 @@ Design: instead of scattering per-edge JᵀWJ blocks into a dense H, every
 reprojection factor lives on a dense ``(F, W+1)`` grid with a validity mask.
 Per-factor Jacobians are expanded over the frame axis with one-hot outer
 products (no dynamic scatter), flattened into a single row-stacked Jacobian
-``J ∈ R^{R×P}``, and the pose Hessian is ONE matmul ``JᵀWJ`` on the MXU.
+``J ∈ R^{R×P}``, and the pose Hessian is ONE matmul ``JᵀWJ``.
 The landmark block is diagonal by construction, so the Schur complement is
 an elementwise inverse + one more matmul.
 
@@ -173,7 +173,7 @@ def robust_chi2(states: WindowStates, f: WindowFactors,
 
 
 # ---------------------------------------------------------------------------
-# Hessian assembly (MakeHessian, problem.cc:303-389) — the MXU path
+# Hessian assembly (MakeHessian, problem.cc:303-389) — the GEMM path
 # ---------------------------------------------------------------------------
 
 class Normal(NamedTuple):
@@ -256,7 +256,7 @@ def assemble(states: WindowStates, f: WindowFactors,
         WJ = jnp.einsum("fjrs,fjsp->fjrp", rinfo, Jfull)             # robust_info · J
         Jmat = Jfull.reshape(F * W1 * 2, P)
         WJmat = WJ.reshape(F * W1 * 2, P)
-        Hpp = Jmat.T @ WJmat                                          # ← MXU GEMM
+        Hpp = Jmat.T @ WJmat                                          # ← GEMM
 
         # b = -Σ drho · Jᵀ · info · r   (info = s²·I, drho = rho1)
         info_r = (s2 * rho1[..., None] * mask[..., None]) * r         # (F,W1,2)
@@ -307,7 +307,7 @@ def assemble(states: WindowStates, f: WindowFactors,
         Jfull = Jfull * ovalid[:, None, None]
 
         WJ = jnp.einsum("ors,osp->orp", rinfo, Jfull)
-        Hpp = Jfull.reshape(n_obs * 2, P).T @ WJ.reshape(n_obs * 2, P)  # MXU
+        Hpp = Jfull.reshape(n_obs * 2, P).T @ WJ.reshape(n_obs * 2, P)  # GEMM
 
         info_r = (s2 * rho1[..., None] * ovalid[:, None]) * r        # (n_obs,2)
         bp = -jnp.einsum("orp,or->p", Jfull, info_r)

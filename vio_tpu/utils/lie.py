@@ -1,4 +1,4 @@
-"""Lie-group / quaternion substrate (SO3, SE3) for the TPU-native VIO stack.
+"""Lie-group / quaternion substrate (SO3, SE3) for the VIO stack.
 
 Quaternions are stored as ``(x, y, z, w)`` arrays of shape ``(..., 4)`` —
 the same memory layout the reference uses for its pose parameter blocks
